@@ -68,9 +68,6 @@ def ensure_corpus():
 def main():
     import jax
 
-    import nn_conformer_for_speech_recognition_tpu as pkg
-
-    pkg.ensure_backend()
     backend = jax.default_backend()
     print(f"[parity-scale] backend={backend}", flush=True)
 

@@ -1,4 +1,4 @@
-// Native audio IO for the TPU Conformer ASR framework.
+// Native audio IO for the Conformer ASR framework.
 //
 // The reference delegates audio decode to torchaudio/librosa C++ binaries
 // (SURVEY.md §2: no first-party native code anywhere).  This module is the

@@ -43,17 +43,11 @@ def _common_model_args(p: argparse.ArgumentParser) -> None:
                    choices=["reference", "conformer_s", "conformer_m", "conformer_l"])
     p.add_argument("--compute-dtype", default="auto",
                    choices=["auto", "float32", "bfloat16"],
-                   help="auto = bfloat16 on TPU (3.3x for Conformer-M), "
-                        "float32 elsewhere")
-    p.add_argument("--use-pallas", action="store_true")
-    p.add_argument("--ctc-impl", default="auto", choices=["auto", "xla", "pallas"])
+                   help="auto = bfloat16 on the GPU, float32 on the CPU")
     p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--seq-parallel", action="store_true",
                    help="Ulysses sequence parallelism: shard attention's "
                         "time axis over the data mesh axis")
-    p.add_argument("--shard-map-kernels", action="store_true",
-                   help="wrap Pallas kernels in shard_map over the data axis "
-                        "(required on real multi-chip slices)")
     p.add_argument("--n-mels", type=int, default=40)
     p.add_argument("--checkpoint", default=None, help="restore full state")
     p.add_argument("--encoder-checkpoint", default=None,
@@ -89,7 +83,6 @@ def _build(args):
         batch_size=args.batch_size,
         optimizer=C.OptimizerConfig(learning_rate=getattr(args, "lr", 2e-5)),
         use_specaugment=not getattr(args, "no_specaugment", False),
-        ctc_impl=getattr(args, "ctc_impl", "auto"),
         bucket_boundaries=tuple(args.bucket_boundaries or ()),
         max_frames=args.max_frames,
         checkpoint_dir=getattr(args, "checkpoint_dir", None),
@@ -129,13 +122,11 @@ def _build(args):
     datasets = {split: _mk(utts) for split, utts in manifests.items()}
 
     mcfg = C.MODEL_PRESETS[args.model](
-        compute_dtype=args.compute_dtype, use_pallas=args.use_pallas,
-        n_mels=args.n_mels,
+        compute_dtype=args.compute_dtype, n_mels=args.n_mels,
     )
     mesh_cfg = C.MeshConfig(
         model_parallel_size=args.model_parallel,
         seq_parallel=getattr(args, "seq_parallel", False),
-        shard_map_kernels=getattr(args, "shard_map_kernels", False),
     )
     model = ConformerCTC(mcfg, vocab_size=len(vocab))
     trainer = Trainer(model, vocab, feat_cfg, train_cfg, mesh_cfg)

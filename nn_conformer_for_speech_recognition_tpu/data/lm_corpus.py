@@ -13,7 +13,7 @@ Capability surface of `unused_lib/finetuning/lmvocab.py:16-166` and
   * ``LMCorpus`` — (pronunciation ids, word ids) example pairs batched with
     static shapes.  Deviation from the reference: token *ids* + learned
     embeddings instead of one-hot streams (`librispeechlm.py:53-78`) — the
-    embedding lookup is the TPU-native formulation of the same computation.
+    embedding lookup is the dense-array formulation of the same computation.
 """
 
 from __future__ import annotations

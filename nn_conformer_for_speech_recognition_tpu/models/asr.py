@@ -4,7 +4,7 @@ Mirrors the reference ``ASRNN`` (`lib/standard/asrnn.py:22-260`) capability
 surface — encoder: ConvSubsampling → Conformer → projection block
 (Linear→SiLU→norm, `asrnn.py:73-89`); decoder: BiLSTM (1 layer, 512 hidden,
 bidirectional per `lib/hparams.py:78-81`) → dropout → Linear → log_softmax
-(`asrnn.py:250-256`) — with the TPU-native deviations documented in
+(`asrnn.py:250-256`) — with the deviations documented in
 SURVEY.md §7: time-preserving subsampling instead of the fixed-``max_len``
 flatten+Linear (`asrnn.py:28,206-209`), mask-based length handling instead of
 row-dropping (`asrnn.py:211-215`), and SpecAugment applied in the train step
@@ -18,84 +18,51 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
 from nn_conformer_for_speech_recognition_tpu.config import ModelConfig
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
 from nn_conformer_for_speech_recognition_tpu.models.conformer import (
     ConformerEncoder,
     MaskedBatchNorm,
     length_mask,
 )
 from nn_conformer_for_speech_recognition_tpu.models.subsampling import ConvSubsampling
+from nn_conformer_for_speech_recognition_tpu.ops import lstm
 
 
 class BiLSTM(nn.Module):
-    """Bidirectional LSTM over padded sequences.
+    """(Bi)directional LSTM over padded sequences (`ops/lstm.lstm_scan`).
 
-    Two compute paths:
-      * flax ``nn.RNN`` + ``OptimizedLSTMCell`` (lax.scan → XLA ``while``);
-      * ``use_pallas``: the fused kernel (`ops/pallas/lstm.py`) with the
-        input projection hoisted out of the recurrence — one kernel per
-        direction instead of a per-step ``while`` (the while's launch +
-        carry copies dominate the long-form train step, docs/STATUS.md).
-
-    The Pallas path owns packed params (w_ih/w_hh/bias per direction), so
-    checkpoints are NOT interchangeable across the flag; valid-region
-    outputs of the two paths agree in distribution but not parameter-wise.
+    Each direction of layer ``i`` owns ``lstm_{fwd,bwd}_{i}_{w_ih,w_hh,bias}``.
     """
 
     hidden: int
     num_layers: int = 1
     bidirectional: bool = True
     dtype: jnp.dtype = jnp.float32
-    use_pallas: bool = False
 
-    @nn.compact
     def __call__(self, x: jnp.ndarray, lengths: jnp.ndarray) -> jnp.ndarray:
-        if self.use_pallas:
-            from nn_conformer_for_speech_recognition_tpu.ops.pallas.lstm import (
-                lstm_pallas,
-            )
-
-            dirs = [("fwd", False)] + ([("bwd", True)] if self.bidirectional else [])
-            for i in range(self.num_layers):
-                d = x.shape[-1]
-                outs = []
-                for name, rev in dirs:
-                    w_ih = self.param(
-                        f"lstm_{name}_{i}_w_ih",
-                        nn.initializers.lecun_normal(), (d, 4 * self.hidden),
-                    )
-                    w_hh = self.param(
-                        f"lstm_{name}_{i}_w_hh",
-                        nn.initializers.orthogonal(), (self.hidden, 4 * self.hidden),
-                    )
-                    bias = self.param(
-                        f"lstm_{name}_{i}_bias",
-                        nn.initializers.zeros, (4 * self.hidden,),
-                    )
-                    xw = x.astype(self.dtype) @ w_ih.astype(self.dtype) + bias
-                    outs.append(lstm_pallas(xw, w_hh, lengths, reverse=rev))
-                x = jnp.concatenate(outs, axis=-1) if len(outs) > 1 else outs[0]
-            return x.astype(self.dtype)
+        names = ("fwd", "bwd") if self.bidirectional else ("fwd",)
+        four_h = 4 * self.hidden
         for i in range(self.num_layers):
-            fwd = nn.RNN(
-                nn.OptimizedLSTMCell(self.hidden, dtype=self.dtype),
-                name=f"lstm_fwd_{i}",
-            )(x, seq_lengths=lengths)
-            if self.bidirectional:
-                bwd = nn.RNN(
-                    nn.OptimizedLSTMCell(self.hidden, dtype=self.dtype),
-                    reverse=True,
-                    keep_order=True,
-                    name=f"lstm_bwd_{i}",
-                )(x, seq_lengths=lengths)
-                x = jnp.concatenate([fwd, bwd], axis=-1)
-            else:
-                x = fwd
-        return x
+            dirs = [
+                (
+                    self.param(f"lstm_{n}_{i}_w_ih", jax.nn.initializers.lecun_normal(),
+                               (x.shape[-1], four_h)),
+                    self.param(f"lstm_{n}_{i}_w_hh", jax.nn.initializers.orthogonal(),
+                               (self.hidden, four_h)),
+                    self.param(f"lstm_{n}_{i}_bias", jax.nn.initializers.zeros, (four_h,)),
+                )
+                for n in names
+            ]
+            x = jnp.concatenate(
+                [lstm.lstm_scan(x, w, lengths, reverse=n == "bwd", dtype=self.dtype)
+                 for n, w in zip(names, dirs)],
+                axis=-1,
+            )
+        return x.astype(self.dtype)
 
 
 class ConformerCTC(nn.Module):
@@ -113,14 +80,7 @@ class ConformerCTC(nn.Module):
         self.subsampling = ConvSubsampling(
             cfg.subsampling, cfg.encoder.d_model, dtype=self.dtype
         )
-        self.encoder = ConformerEncoder(
-            cfg.encoder,
-            use_pallas=cfg.use_pallas,
-            attention_impl=cfg.attention_impl if cfg.use_pallas else "xla",
-            conv_impl=cfg.resolved_conv_impl(),
-            remat=cfg.remat,
-            dtype=self.dtype,
-        )
+        self.encoder = ConformerEncoder(cfg.encoder, remat=cfg.remat, dtype=self.dtype)
         self.input_dropout = nn.Dropout(cfg.encoder.dropout)
         # projection block: Linear → SiLU → masked BN (`asrnn.py:73-89`)
         self.projection = nn.Dense(cfg.decoder.projection_dim, dtype=self.dtype)
@@ -130,7 +90,6 @@ class ConformerCTC(nn.Module):
             num_layers=cfg.decoder.lstm_layers,
             bidirectional=cfg.decoder.bidirectional,
             dtype=self.dtype,
-            use_pallas=cfg.resolved_lstm_impl() == "pallas",
         )
         self.decoder_dropout = nn.Dropout(cfg.decoder.dropout)
         self.final_fc = nn.Dense(self.vocab_size, dtype=jnp.float32)
@@ -145,7 +104,7 @@ class ConformerCTC(nn.Module):
         h = self.input_dropout(h, deterministic=deterministic)
         h = self.encoder(h, lengths, deterministic=deterministic)
         mask = length_mask(lengths, h.shape[1])
-        h = nn.silu(self.projection(h))
+        h = jax.nn.silu(self.projection(h))
         h = self.projection_norm(h, mask, use_running_average=deterministic)
         return h * mask[..., None].astype(h.dtype), lengths
 

@@ -1,4 +1,4 @@
-"""Conformer encoder blocks, TPU-first.
+"""Conformer encoder blocks.
 
 Block layout is the canonical macaron sandwich — ½FFN → MHSA(rel-pos) →
 ConvModule → ½FFN → LayerNorm — matching the reference's from-scratch block
@@ -6,15 +6,14 @@ ConvModule → ½FFN → LayerNorm — matching the reference's from-scratch blo
 reference's active-path dims as the parity preset (1 block, d=512, 8 heads,
 depthwise k=33, dropout .5 per `lib/standard/asrnn.py:29`).
 
-TPU-specific choices:
+Design choices:
   * Relative-position self-attention is Transformer-XL style (content bias u,
     position bias v, sinusoidal rel-pos table — superseding the additive
-    sinusoidal hack at `unused_lib/conformer.py:92-105`), with a Pallas
-    flash-attention path (`ops/pallas/attention.py`) selectable via
-    ``use_pallas``.
+    sinusoidal hack at `unused_lib/conformer.py:92-105`), computed as two
+    einsums and a pad/reshape rel-shift (`ops/relshift.py`).
   * The conv module's BatchNorm (`unused_lib/conformer.py:35`) becomes a
     *masked* batch norm: statistics are computed over valid frames only, and
-    under pjit data parallelism the batch reduction is global automatically
+    under jit data parallelism the batch reduction is global automatically
     (XLA GSPMD turns the sharded-batch mean into a cross-replica reduction —
     the SURVEY.md §7 "BatchNorm under DP" item).
   * All sequence handling is mask-based: static shapes, no dynamic slicing,
@@ -23,17 +22,13 @@ TPU-specific choices:
 
 from __future__ import annotations
 
-from typing import Optional
-
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nn_conformer_for_speech_recognition_tpu.config import (
-    FLASH_ATTENTION_MIN_T,
-    ConformerConfig,
-)
+from nn_conformer_for_speech_recognition_tpu.config import ConformerConfig
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
+from nn_conformer_for_speech_recognition_tpu.ops.relshift import rel_shift
 
 NEG_INF = -1e30
 
@@ -60,23 +55,22 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over (batch, time) with padded frames excluded from stats.
 
     Running statistics live in the ``batch_stats`` collection.  Under jit+DP
-    the masked sums reduce over the *global* batch via GSPMD — the TPU-native
-    analogue of SyncBatchNorm.
+    the masked sums reduce over the *global* batch via GSPMD — the analogue
+    of SyncBatchNorm.
     """
 
     momentum: float = 0.9
     epsilon: float = 1e-5
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, mask: jnp.ndarray, use_running_average: bool = False
     ) -> jnp.ndarray:
         c = x.shape[-1]
         ra_mean = self.variable("batch_stats", "mean", lambda: jnp.zeros((c,)))
         ra_var = self.variable("batch_stats", "var", lambda: jnp.ones((c,)))
-        scale = self.param("scale", nn.initializers.ones, (c,))
-        bias = self.param("bias", nn.initializers.zeros, (c,))
+        scale = self.param("scale", jax.nn.initializers.ones, (c,))
+        bias = self.param("bias", jax.nn.initializers.zeros, (c,))
 
         if use_running_average:
             mean, var = ra_mean.value, ra_var.value
@@ -102,11 +96,10 @@ class FeedForwardModule(nn.Module):
     dropout: float
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(self, x: jnp.ndarray, deterministic: bool) -> jnp.ndarray:
         h = nn.LayerNorm(dtype=self.dtype)(x)
         h = nn.Dense(self.ffn_dim, dtype=self.dtype)(h)
-        h = nn.silu(h)
+        h = jax.nn.silu(h)
         h = nn.Dropout(self.dropout)(h, deterministic=deterministic)
         h = nn.Dense(self.d_model, dtype=self.dtype)(h)
         return nn.Dropout(self.dropout)(h, deterministic=deterministic)
@@ -122,10 +115,8 @@ class RelPositionMHSA(nn.Module):
     num_heads: int
     dropout: float
     use_relative: bool = True
-    use_pallas: bool = False
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, mask: jnp.ndarray, deterministic: bool
     ) -> jnp.ndarray:
@@ -142,8 +133,8 @@ class RelPositionMHSA(nn.Module):
         scale = 1.0 / np.sqrt(dh)
 
         if self.use_relative:
-            u_bias = self.param("u_bias", nn.initializers.zeros, (h, dh))
-            v_bias = self.param("v_bias", nn.initializers.zeros, (h, dh))
+            u_bias = self.param("u_bias", jax.nn.initializers.zeros, (h, dh))
+            v_bias = self.param("v_bias", jax.nn.initializers.zeros, (h, dh))
             rel = jnp.asarray(sinusoidal_rel_positions(t, self.d_model))
             p = nn.Dense(self.d_model, use_bias=False, dtype=self.dtype, name="pos_proj")(rel)
             p = p.reshape(2 * t - 1, h, dh)
@@ -164,17 +155,7 @@ class RelPositionMHSA(nn.Module):
                 out = ulysses_relpos_attention(
                     q, k, v, p,
                     u_bias.astype(self.dtype), v_bias.astype(self.dtype),
-                    mask, scale,
-                    mesh=seq[0], axis=seq[1], use_pallas=self.use_pallas,
-                )
-            elif self.use_pallas:
-                from nn_conformer_for_speech_recognition_tpu.ops.pallas.attention import (
-                    rel_attention_pallas,
-                )
-
-                out = rel_attention_pallas(
-                    q, k, v, p, u_bias.astype(self.dtype), v_bias.astype(self.dtype),
-                    mask, scale,
+                    mask, scale, mesh=seq[0], axis=seq[1],
                 )
             else:
                 ac = jnp.einsum(
@@ -186,11 +167,7 @@ class RelPositionMHSA(nn.Module):
                     preferred_element_type=jnp.float32,
                 )
                 # relative index l = (j - i) + (T-1) → absolute (i, j) via the
-                # pad/reshape rel-shift (gathers compile pathologically on TPU)
-                from nn_conformer_for_speech_recognition_tpu.ops.relshift import (
-                    rel_shift,
-                )
-
+                # pad/reshape rel-shift, not a gather
                 bd = rel_shift(bd_full)
                 scores = (ac + bd) * scale
                 scores = jnp.where(mask[:, None, None, :], scores, NEG_INF)
@@ -221,46 +198,31 @@ class ConvModule(nn.Module):
     expansion: int
     dropout: float
     norm: str = "batchnorm"
-    use_pallas: bool = False
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, mask: jnp.ndarray, deterministic: bool
     ) -> jnp.ndarray:
         h = nn.LayerNorm(dtype=self.dtype)(x)
         h = nn.Dense(2 * self.expansion * self.d_model, dtype=self.dtype)(h)
         a, g = jnp.split(h, 2, axis=-1)
-        h = a * nn.sigmoid(g)  # GLU
+        h = a * jax.nn.sigmoid(g)  # GLU
         # zero padded frames so the depthwise window never reads garbage
         h = h * mask[..., None].astype(h.dtype)
 
-        if self.use_pallas:
-            from nn_conformer_for_speech_recognition_tpu.ops.pallas.depthwise_conv import (
-                depthwise_conv1d_pallas,
-            )
-
-            dw_kernel = self.param(
-                "dw_kernel",
-                nn.initializers.lecun_normal(),
-                (self.kernel_size, self.expansion * self.d_model),
-            )
-            h = depthwise_conv1d_pallas(h, dw_kernel.astype(self.dtype))
-        else:
-            # no bias when BatchNorm follows: BN subtracts the per-channel
-            # mean, so the bias is mathematically inert — its gradient is
-            # exactly 0, and under Adam a numerically-noisy "0" gradient
-            # random-walks the parameter at ±lr per step (also matches the
-            # biasless Pallas depthwise kernel).
-            h = nn.Conv(
-                features=self.expansion * self.d_model,
-                kernel_size=(self.kernel_size,),
-                padding="SAME",
-                feature_group_count=self.expansion * self.d_model,
-                use_bias=(self.norm != "batchnorm"),
-                dtype=self.dtype,
-                name="depthwise",
-            )(h)
+        # no bias when BatchNorm follows: BN subtracts the per-channel
+        # mean, so the bias is mathematically inert — its gradient is
+        # exactly 0, and under Adam a numerically-noisy "0" gradient
+        # random-walks the parameter at ±lr per step.
+        h = nn.Conv(
+            features=self.expansion * self.d_model,
+            kernel_size=(self.kernel_size,),
+            padding="SAME",
+            feature_group_count=self.expansion * self.d_model,
+            use_bias=(self.norm != "batchnorm"),
+            dtype=self.dtype,
+            name="depthwise",
+        )(h)
 
         if self.norm == "batchnorm":
             h = MaskedBatchNorm(dtype=self.dtype)(
@@ -270,28 +232,19 @@ class ConvModule(nn.Module):
             h = nn.GroupNorm(num_groups=32, dtype=self.dtype)(h)
         else:
             h = nn.LayerNorm(dtype=self.dtype)(h)
-        h = nn.silu(h)
+        h = jax.nn.silu(h)
         h = nn.Dense(self.d_model, dtype=self.dtype)(h)
         return nn.Dropout(self.dropout)(h, deterministic=deterministic)
 
 
 class ConformerBlock(nn.Module):
     config: ConformerConfig
-    use_pallas: bool = False  # legacy master switch: forces both ops Pallas
-    # resolved per-op impls; None = fall back to ``use_pallas``
-    attention_pallas: Optional[bool] = None
-    conv_pallas: Optional[bool] = None
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, mask: jnp.ndarray, deterministic: bool
     ) -> jnp.ndarray:
         cfg = self.config
-        att_pl = self.use_pallas if self.attention_pallas is None \
-            else self.attention_pallas
-        conv_pl = self.use_pallas if self.conv_pallas is None \
-            else self.conv_pallas
         x = x + 0.5 * FeedForwardModule(
             cfg.d_model, cfg.ffn_dim, cfg.dropout, dtype=self.dtype, name="ffn1"
         )(x, deterministic)
@@ -300,7 +253,6 @@ class ConformerBlock(nn.Module):
             cfg.num_heads,
             cfg.attention_dropout,
             use_relative=cfg.use_relative_attention,
-            use_pallas=att_pl,
             dtype=self.dtype,
             name="mhsa",
         )(x, mask, deterministic)
@@ -310,7 +262,6 @@ class ConformerBlock(nn.Module):
             cfg.conv_expansion,
             cfg.dropout,
             norm=cfg.conv_norm,
-            use_pallas=conv_pl,
             dtype=self.dtype,
             name="conv",
         )(x, mask, deterministic)
@@ -322,59 +273,23 @@ class ConformerBlock(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
-    """Stack of Conformer blocks with shape-aware kernel routing.
-
-    ``attention_impl``: 'flash' | 'xla' | 'auto' — auto picks flash only when
-    the (static, known at trace time) sequence length reaches
-    ``flash_min_t``: below that, each Mosaic kernel invocation's ~0.45 ms
-    fixed cost (results/step_trace_tpu.json) exceeds the whole einsum
-    attention, and the XLA path's O(T²) score tensor is still small.
-    ``conv_impl``: 'pallas' | 'xla' for the depthwise conv.
-    ``use_pallas`` (legacy): when the impls are None, True maps to
-    attention_impl='auto', conv_impl='auto' — the SAME resolution
-    ``ModelConfig.resolved_*_impl`` uses, so the param tree is identical
-    whether a model is built through ``ConformerCTC`` or directly through
-    this module (conv 'auto' resolves to 'xla'; checkpoints written by the
-    pre-round-5 legacy mapping, where use_pallas=True forced the Pallas
-    depthwise path with its 'dw_kernel' param, load by passing
-    conv_impl='pallas' explicitly).
-    """
+    """Stack of Conformer blocks; ``remat`` recomputes each block in the
+    backward pass instead of storing its activations."""
 
     config: ConformerConfig
-    use_pallas: bool = False
-    attention_impl: Optional[str] = None
-    conv_impl: Optional[str] = None
-    flash_min_t: int = FLASH_ATTENTION_MIN_T
     remat: bool = False
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, lengths: jnp.ndarray, deterministic: bool = True
     ) -> jnp.ndarray:
-        t = x.shape[1]
-        att_impl = self.attention_impl or ("auto" if self.use_pallas else "xla")
-        if att_impl == "auto":
-            att_impl = "flash" if t >= self.flash_min_t else "xla"
-        conv_impl = self.conv_impl or ("auto" if self.use_pallas else "xla")
-        if conv_impl == "auto":
-            # canonical resolution, identical to ModelConfig.resolved_conv_impl:
-            # XLA's fused conv_general_dilated beats the Pallas kernel's fixed
-            # cost at every measured shape, and a shape-driven flip would
-            # silently change checkpoint param names (dw_kernel vs depthwise)
-            conv_impl = "xla"
-        mask = length_mask(lengths, t)
+        mask = length_mask(lengths, x.shape[1])
         block_cls = ConformerBlock
         if self.remat:
-            # recompute each block in the backward pass instead of storing
-            # its activations (static_argnums: `deterministic` is a py bool)
+            # `deterministic` is a python bool: static for jax.checkpoint
             block_cls = nn.remat(ConformerBlock, static_argnums=(3,))
         for i in range(self.config.num_blocks):
-            x = block_cls(
-                self.config,
-                attention_pallas=att_impl == "flash",
-                conv_pallas=conv_impl == "pallas",
-                dtype=self.dtype,
-                name=f"block_{i}",
-            )(x, mask, deterministic)
+            x = block_cls(self.config, dtype=self.dtype, name=f"block_{i}")(
+                x, mask, deterministic
+            )
         return x

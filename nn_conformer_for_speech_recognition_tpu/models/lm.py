@@ -20,10 +20,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
 
 
 def sinusoidal_positions(t: int, d: int) -> np.ndarray:
@@ -41,7 +42,6 @@ class TransformerLayer(nn.Module):
     causal_self: bool = False
     cross: bool = False
 
-    @nn.compact
     def __call__(self, x, enc_out=None, mask=None, enc_mask=None, deterministic=True):
         t = x.shape[1]
         attn_mask = None
@@ -50,18 +50,18 @@ class TransformerLayer(nn.Module):
         if self.causal_self:
             causal = jnp.tril(jnp.ones((t, t), bool))[None, None]
             attn_mask = causal if attn_mask is None else (attn_mask & causal)
-        h = nn.MultiHeadDotProductAttention(
+        h = nn.MultiHeadAttention(
             num_heads=self.heads, dropout_rate=self.dropout, name="self_attn"
         )(x, x, mask=attn_mask, deterministic=deterministic)
         x = nn.LayerNorm()(x + h)
         if self.cross:
             cmask = None if enc_mask is None else enc_mask[:, None, None, :]
-            h = nn.MultiHeadDotProductAttention(
+            h = nn.MultiHeadAttention(
                 num_heads=self.heads, dropout_rate=self.dropout, name="cross_attn"
             )(x, enc_out, mask=cmask, deterministic=deterministic)
             x = nn.LayerNorm()(x + h)
         h = nn.Dense(self.ffn)(x)
-        h = nn.relu(h)
+        h = jax.nn.relu(h)
         h = nn.Dropout(self.dropout)(h, deterministic=deterministic)
         h = nn.Dense(self.d)(h)
         return nn.LayerNorm()(x + h)
@@ -79,7 +79,6 @@ class TransformerLM(nn.Module):
     dec_layers: int = 4
     dropout: float = 0.1
 
-    @nn.compact
     def __call__(
         self,
         src_ids: jnp.ndarray,  # (B, S) pronunciation stream
@@ -119,7 +118,6 @@ class CausalWordLM(nn.Module):
     layers: int = 2
     dropout: float = 0.1
 
-    @nn.compact
     def __call__(self, ids: jnp.ndarray, deterministic: bool = True) -> jnp.ndarray:
         t = ids.shape[1]
         x = nn.Embed(self.vocab, self.d)(ids)
@@ -153,8 +151,8 @@ def _lm_attn_as_qkv_out(attn: Dict):
     """An LM attention module's params → (qkv_kernel (d, 3d), out_kernel
     (d, d)) in the ASR MHSA layout, or None if the module is malformed.
 
-    flax MultiHeadDotProductAttention stores query/key/value as (d, H, dh)
-    and out as (H, dh, d); the ASR's fused qkv Dense is (d, 3d) with
+    `layers.MultiHeadAttention` stores query/key/value as (d, H, dh) and
+    out as (H, dh, d); the ASR's fused qkv Dense is (d, 3d) with
     [q | k | v] column blocks (`models/conformer.py` RelPositionMHSA), so the
     per-projection merge is exact — the analogue of adding torch's
     ``in_proj_weight`` (3d, d) and ``out_proj.weight``.
@@ -253,8 +251,7 @@ def make_pron_lm_apply(lm: TransformerLM, lm_variables, pron_table: np.ndarray):
     ``lm(ngram, predict(x))`` with the enc-dec LM
     (`lib/standard/asrnn.py:257-258` + `languagemodel.py:102-111`).
 
-    The table lookup is a one-hot matmul, not a gather (docs/STATUS.md env
-    fact 7: batched gathers compile pathologically on TPU).
+    The table lookup is a one-hot matmul, not a gather.
     """
     table = jnp.asarray(pron_table, jnp.float32)  # (V, P)
     vocab_size = table.shape[0]

@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
@@ -26,6 +25,7 @@ from nn_conformer_for_speech_recognition_tpu.config import (
     ModelConfig,
     PretrainConfig,
 )
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
 from nn_conformer_for_speech_recognition_tpu.models.conformer import (
     ConformerEncoder,
     length_mask,
@@ -40,7 +40,6 @@ class PretrainModel(nn.Module):
     config: ModelConfig
     pretrain: PretrainConfig
 
-    @nn.compact
     def __call__(
         self,
         features: jnp.ndarray,

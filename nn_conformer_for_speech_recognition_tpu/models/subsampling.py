@@ -8,18 +8,19 @@ length-generalisation bug we deliberately do not replicate (SURVEY.md §7).
 
 Here the convs are time-preserving (stride 2 in time each → 4× reduction,
 SAME padding so subsampled_length = ceil(ceil(T/2)/2)), and a per-frame Dense
-projects the flattened frequency×channel axis to ``d_model``.  NHWC layout
-with feature-last keeps XLA's TPU conv lowering happy.
+projects the flattened frequency×channel axis to ``d_model``.  The layout
+is NHWC (channels last).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from nn_conformer_for_speech_recognition_tpu.config import SubsamplingConfig
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
 
 
 class ConvSubsampling(nn.Module):
@@ -29,7 +30,6 @@ class ConvSubsampling(nn.Module):
     d_model: int
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
     def __call__(
         self, x: jnp.ndarray, frame_lengths: Optional[jnp.ndarray] = None
     ) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
@@ -46,7 +46,7 @@ class ConvSubsampling(nn.Module):
                 padding="SAME",
                 dtype=self.dtype,
             )(h)
-            h = nn.relu(h)
+            h = jax.nn.relu(h)
         b, t, f, c = h.shape
         h = h.reshape(b, t, f * c)
         h = nn.Dense(self.d_model, dtype=self.dtype)(h)

@@ -1,6 +1,6 @@
 """CTC loss — log-space forward (alpha) recursion under ``lax.scan``.
 
-TPU-native replacement for the reference's ``torch.nn.CTCLoss(blank=blank_idx,
+Replacement for the reference's ``torch.nn.CTCLoss(blank=blank_idx,
 zero_infinity=True)`` (`lib/standard/runner.py:35,143`).  The recursion is a
 single ``lax.scan`` over time with fully static shapes: labels are padded to a
 fixed max length, the extended (blank-interleaved) sequence has static length
@@ -35,8 +35,7 @@ def _logaddexp3(a, b, c):
 
 
 def extended_labels(labels: jnp.ndarray, label_lengths: jnp.ndarray, blank_id: int):
-    """Blank-interleaved CTC label machinery shared by the XLA scan loss and
-    the Pallas kernel (`ops/pallas/ctc.py`).
+    """Blank-interleaved CTC label machinery of the scan loss.
 
     Returns (ext (B,S), can_skip (B,S) bool, valid_pos (B,S) bool,
     ext_len (B,)) with S = 2L+1.
@@ -60,10 +59,8 @@ def extended_labels(labels: jnp.ndarray, label_lengths: jnp.ndarray, blank_id: i
 def emit_log_probs(log_probs: jnp.ndarray, ext: jnp.ndarray) -> jnp.ndarray:
     """emit[b, t, s] = log_probs[b, t, ext[b, s]] — as a one-hot matmul.
 
-    A (B, T, S) advanced-indexing gather compiles pathologically on TPU
-    (measured 180 ms vs 2.3 ms at B=256, T=240, V=1024, S=201 on v5e); the
-    MXU one-hot contraction is ~77× faster and its adjoint is another matmul
-    instead of a scatter.  HIGHEST precision keeps the selection exact
+    A one-hot contraction instead of a (B, T, S) advanced-indexing gather:
+    one matmul, whose adjoint is another matmul instead of a scatter.  HIGHEST precision keeps the selection exact
     (default-precision bf16 passes round the selected log-probs to ~2⁻⁸).
     """
     onehot = (
@@ -131,7 +128,7 @@ def ctc_loss(
         labels, label_lengths, blank_id
     )
 
-    # emit once for all (t, s) via the MXU (no per-step gathers in the scan)
+    # emit once for all (t, s) as one matmul (no per-step gathers in the scan)
     emit_all = emit_log_probs(log_probs, ext)  # (B, T, S)
 
     # alpha_0

@@ -5,7 +5,7 @@ frame, `lib/standard/asrnn.py:48-58`); token→string handling (drop pad/blank
 for word vocab, CTC repeat-collapse for word pieces) lives in
 `data/vocab.py`, mirroring `myvocab.py:211-231` / `wordpiecemodel.py:359-387`.
 
-Beam search is the TPU-shaped version of CTC prefix beam search
+Beam search is a static-shape version of CTC prefix beam search
 (Hannun et al. 2014): XLA needs static shapes, so the hypothesis set is a
 fixed-width beam held in dense arrays, and per-step expansion considers only
 the top-``prune`` tokens of the frame.  Duplicate merging exploits the
@@ -84,14 +84,15 @@ def _beam_step(state: BeamState, inputs, *, beam: int, prune: int):
     """
     logp, tok_lp, tok_ids, lp_blank, active = inputs  # (V,), (P,), (P,), (), ()
     # repeat of last token extends p_nb without changing the prefix.
-    # One-hot contraction, not logp[last]: batched gathers in the scan are
-    # pathological on TPU (docs/STATUS.md #7); mirrors the sharded path.
+    # One-hot contraction, not logp[last]: no batched gather inside the
+    # scan; mirrors the sharded path.
     onehot = (state.last[:, None] == jnp.arange(logp.shape[0])[None, :]).astype(
         logp.dtype
     )
-    # HIGHEST precision: default f32 matmul rounds inputs to bf16 on TPU,
-    # perturbing the repeat-of-last log-prob every frame (can flip beam
-    # rankings on near-ties; CPU parity tests would never see it).  Same
+    # HIGHEST precision: a default-precision f32 matmul may round inputs
+    # (TF32 on the GPU), perturbing the repeat-of-last log-prob every frame
+    # (can flip beam rankings on near-ties; CPU parity tests would never see
+    # it).  Same
     # contraction as ops/ctc.py's emit matmul, same precision requirement.
     lp_last = jnp.einsum(
         "bv,v->b", onehot, logp, precision=jax.lax.Precision.HIGHEST
@@ -134,10 +135,8 @@ def _beam_step_core(
 
     # ---- flatten to candidate arrays ------------------------------------
     # candidate i in [0, beam): stay; i in [beam, beam+beam*P): extend.
-    # NO index gathers anywhere in this step: batched gathers under
-    # vmap+scan are pathological on TPU (docs/STATUS.md #7 — the CTC emit
-    # gather alone cost 180 ms) — everything is broadcasts and one-hot
-    # reductions, which XLA fuses and the MXU/VPU eat.
+    # NO index gathers anywhere in this step: everything is broadcasts and
+    # one-hot reductions, which XLA fuses.
     n_ext = beam * prune
     cand_pb = jnp.concatenate([stay_pb, jnp.full((n_ext,), NEG_INF)])
     cand_pnb = jnp.concatenate([stay_pnb, ext_pnb.reshape(-1)])
@@ -363,7 +362,7 @@ def ctc_beam_search_sharded(
                 state.last[:, None] == local_ids[None, :]
             ).astype(lp_loc_t.dtype)  # (beam, Vl)
             # HIGHEST precision to stay bit-identical with the dense path
-            # (default TPU matmul precision rounds inputs to bf16).
+            # (default matmul precision may round inputs: TF32 on the GPU).
             lp_last = jax.lax.psum(
                 jnp.einsum(
                     "bv,v->b",

@@ -2,13 +2,10 @@
 
 Maps a relative-distance table ``x[..., i, l]`` with ``l = (j - i) + (T-1)``
 to absolute coordinates ``y[..., i, j]`` using only pad/reshape/slice — the
-classic "rel shift" trick.  Batched ``take_along_axis`` gathers compile
-pathologically on TPU (docs/STATUS.md env fact 3; measured 2362 → 13 ms/step
-when the SpecAugment warp gather was removed), so every rel-pos bias
-construction routes through these.
+classic "rel shift" trick, with no batched ``take_along_axis`` gather.
 
 Verified element-exact against the gather formulation (tests/test_models.py,
-tests/test_pallas.py use the call sites).
+tests/test_attention.py).
 """
 
 from __future__ import annotations

@@ -54,10 +54,8 @@ def _time_warp_single(x: jnp.ndarray, tau: jnp.ndarray, key: jax.Array, w_param:
     i0 = jnp.floor(src).astype(jnp.int32)
     i1 = jnp.minimum(i0 + 1, t - 1)
     frac = (src - i0.astype(jnp.float32))[:, None]
-    # linear interp as a (T, T) one-hot matmul instead of x[i0]/x[i1] gathers:
-    # batched advanced-indexing gathers compile pathologically on TPU
-    # (measured 2362 ms/step vs 13 ms for the whole Conformer-M train step at
-    # T=938 — docs/STATUS.md); the interp matrix rides the MXU and fuses.
+    # linear interp as a (T, T) one-hot matmul instead of x[i0]/x[i1]
+    # batched gathers: the interp matrix is one matmul and fuses.
     j = jnp.arange(t)[None, :]
     interp = (j == i0[:, None]) * (1.0 - frac) + (j == i1[:, None]) * frac
     return jax.lax.dot(

@@ -3,11 +3,13 @@
 The reference is single-device (`lib/hparams.py:27`); this module supplies the
 layer it lacks (SURVEY.md §2.3): a ``('data', 'model')`` mesh, NamedSharding
 specs for batches and parameters, and multi-host init.  Parallelism is
-GSPMD-style: annotate shardings, jit, and let XLA insert the collectives over
-ICI — gradient psum falls out of the sharded batch axis, tensor-parallel
-all-reduces out of the sharded FFN/attention weight axes.
+GSPMD-style: annotate shardings, jit, and let XLA insert the collectives —
+gradient psum falls out of the sharded batch axis, tensor-parallel
+all-reduces out of the sharded FFN/attention weight axes.  On one host the
+cards are joined all to all (NVLink), so the mesh follows the algorithm, not
+a physical topology.
 
-Parameter partitioning is rule-based on flax param path + shape:
+Parameter partitioning is rule-based on the param path + shape:
   * FFN/attention kernels with a dim divisible by the model axis are sharded
     on their largest weight axis (Megatron-style column/row split);
   * everything else is replicated.
@@ -35,7 +37,6 @@ def make_mesh(
     if n % mp != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel_size={mp}")
     dp = n // mp
-    # model axis innermost → TP collectives ride the fastest ICI links
     arr = np.asarray(devices).reshape(dp, mp)
     return Mesh(arr, (config.data_axis, config.model_axis))
 
@@ -100,7 +101,7 @@ def shard_batch_arrays(mesh: Mesh, config: MeshConfig, *arrays):
 
 
 def initialize_multihost(coordinator: Optional[str] = None) -> None:
-    """Multi-host init (no-op single-process).  On a real pod slice call this
-    before any jax op; controller address comes from the TPU environment."""
+    """Multi-host init (no-op single-process).  Call before any jax op, with
+    the coordinator's ``host:port``."""
     if jax.process_count() > 1 or coordinator:
         jax.distributed.initialize(coordinator_address=coordinator)

@@ -1,12 +1,12 @@
 """Sequence (context) parallelism: Ulysses-style head-sharded attention.
 
 SURVEY.md §2.3: the reference pads everything to a global max length on one
-device; for very long audio the TPU build optionally shards the *time* axis
+device; for very long audio this build optionally shards the *time* axis
 of attention across the mesh.  The Ulysses scheme: activations arrive
 time-sharded; an all-to-all over the sequence axis exchanges the time shards
 for head shards, each device computes full-length attention for H/n heads,
-and a second all-to-all restores time sharding.  Both collectives ride ICI
-(`jax.lax.all_to_all` inside ``shard_map``).
+and a second all-to-all restores time sharding.  Both collectives are
+`jax.lax.all_to_all` inside ``shard_map``.
 
 Requires num_heads % axis_size == 0 and T % axis_size == 0 (pad T to the
 mesh multiple — bucketed batching already rounds lengths).
@@ -91,8 +91,8 @@ def sequence_sharding(mesh: Mesh, axis: str = "data"):
 
 # ---------------------------------------------------------------------------
 # Product wiring: MeshConfig.seq_parallel activates an ambient sequence mesh
-# (same trace-time pattern as parallel/kernel_sharding.py) that
-# `models/conformer.RelPositionMHSA` consults to route through Ulysses.
+# read at trace time by `models/conformer.RelPositionMHSA` to route through
+# Ulysses.
 # ---------------------------------------------------------------------------
 
 import contextlib
@@ -139,7 +139,6 @@ def ulysses_relpos_attention(
     scale: float,
     mesh: Mesh,
     axis: str = "data",
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     """Ulysses attention with Transformer-XL relative positions, head-sharded.
 
@@ -148,9 +147,7 @@ def ulysses_relpos_attention(
     for head shards; each device runs full-length rel-pos attention on its
     H/n heads with the rel-pos TABLE sliced per head shard (the table enters
     `P(None, axis, None)` — O(T·H/n·dh) per device, never an O(H·T²) bias);
-    a second all-to-all restores time sharding.  With ``use_pallas`` the
-    local attention is the true-flash kernel, so per-device memory is O(T)
-    end-to-end.
+    a second all-to-all restores time sharding.
     """
     n = mesh.shape[axis]
     b, t, h, dh = q.shape
@@ -179,30 +176,21 @@ def ulysses_relpos_attention(
         q_f, k_f, v_f = t2h(q_l), t2h(k_l), t2h(v_l)
         qu = q_f + u_l[None, None]
         qv = q_f + v_bias_l[None, None]
-        if use_pallas:
-            from nn_conformer_for_speech_recognition_tpu.ops.pallas.attention import (
-                flash_attention_relpos,
-            )
+        from nn_conformer_for_speech_recognition_tpu.ops.relshift import rel_shift
 
-            out = flash_attention_relpos(qu, qv, k_f, v_f, p_l, lengths_l, scale)
-        else:
-            from nn_conformer_for_speech_recognition_tpu.ops.relshift import (
-                rel_shift,
+        ac = jnp.einsum(
+            "bihd,bjhd->bhij", qu, k_f, preferred_element_type=jnp.float32
+        )
+        bd = rel_shift(
+            jnp.einsum(
+                "bihd,lhd->bhil", qv, p_l, preferred_element_type=jnp.float32
             )
-
-            ac = jnp.einsum(
-                "bihd,bjhd->bhij", qu, k_f, preferred_element_type=jnp.float32
-            )
-            bd = rel_shift(
-                jnp.einsum(
-                    "bihd,lhd->bhil", qv, p_l, preferred_element_type=jnp.float32
-                )
-            )
-            scores = (ac + bd) * scale
-            key_ok = (jnp.arange(t)[None, :] < lengths_l[:, None])[:, None, None, :]
-            scores = jnp.where(key_ok, scores, NEG_INF)
-            probs = jax.nn.softmax(scores, axis=-1).astype(q_f.dtype)
-            out = jnp.einsum("bhij,bjhd->bihd", probs, v_f)
+        )
+        scores = (ac + bd) * scale
+        key_ok = (jnp.arange(t)[None, :] < lengths_l[:, None])[:, None, None, :]
+        scores = jnp.where(key_ok, scores, NEG_INF)
+        probs = jax.nn.softmax(scores, axis=-1).astype(q_f.dtype)
+        out = jnp.einsum("bhij,bjhd->bihd", probs, v_f)
         # (B, T, H/n, dh) → (B, T/n, H, dh)
         return jax.lax.all_to_all(out, axis, split_axis=1, concat_axis=2, tiled=True)
 
@@ -236,7 +224,7 @@ def seq_parallel_applicable(
 
 
 # ---------------------------------------------------------------------------
-# Fallback observability (shared by kernel_sharding via _record import):
+# Fallback observability:
 # trace-time engagement counters + one-time warnings per distinct reason.
 # ---------------------------------------------------------------------------
 
@@ -264,7 +252,7 @@ def _record(feature: str, engaged: bool, reason: str = "") -> None:
 def fallback_stats(feature: Optional[str] = None):
     """Trace-time engagement counters: {feature: {engaged, fallback,
     reasons: {reason: count}}}.  Readable in tests and by users diagnosing
-    why ``seq_parallel``/``shard_map_kernels`` didn't engage."""
+    why ``seq_parallel`` didn't engage."""
     if feature is not None:
         return dict(_STATS.get(feature, {"engaged": 0, "fallback": 0, "reasons": {}}))
     return {k: dict(v) for k, v in _STATS.items()}

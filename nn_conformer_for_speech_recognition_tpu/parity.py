@@ -19,8 +19,7 @@ Protocol reproduced here (one command: ``cli parity --manifest-dir ...``):
     {pseudo-label U → filter → mix → retrain 1 epoch}
     (`finetune.py:17-35`, `hparams.py:105-107`).
 
-Real SpeechCommands audio is not present in this image (no network —
-docs/STATUS.md); CI runs the harness end-to-end on the synthetic corpus
+Real SpeechCommands audio needs a network download; CI runs the harness end-to-end on the synthetic corpus
 (tests/test_cli.py), and the real comparison is one ``prepare-data`` +
 ``parity`` invocation away once a dataset directory exists.
 """

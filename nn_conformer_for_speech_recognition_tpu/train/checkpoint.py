@@ -1,28 +1,49 @@
-"""Checkpointing via orbax.
+"""Checkpointing: the full TrainState as one ``.npz`` file per checkpoint.
 
 The reference saves only final weights with ``torch.save(state_dict)`` to
 fixed paths (`lib/standard/runner.py:48-60`) — no optimizer state, no resume.
-Here the full TrainState (params, batch stats, Adafactor state, step, PRNG)
-round-trips, enabling exact resume mid-NST-generation (SURVEY.md §5), and a
-selective encoder-only restore mirrors the reference's 'conformer'-filtered
-partial load (`runner.py:61-77`).
+Here the full TrainState (params, batch stats, Adafactor state, step, PRNG,
+data-iterator cursor) round-trips, enabling exact resume mid-NST-generation
+(SURVEY.md §5), and a selective encoder-only restore mirrors the reference's
+'conformer'-filtered partial load (`runner.py:61-77`).
+
+A checkpoint is a directory holding ``state.npz``: every leaf under its
+'/'-joined tree path.  It is written into a temporary directory beside the
+target and renamed into place, so a reader never sees a partial checkpoint.
+In a multi-process run every leaf is gathered to the host and process 0
+writes.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any
+import shutil
+import tempfile
+from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import orbax.checkpoint as ocp
 
 from nn_conformer_for_speech_recognition_tpu.train.state import TrainState
 
+_FILE = "state.npz"
+
+
+def _key_str(k) -> str:
+    for attr in ("key", "idx", "name"):
+        if hasattr(k, attr):
+            return str(getattr(k, attr))
+    raise TypeError(f"unsupported tree key {k!r}")
+
+
+def _flatten(tree) -> Dict[str, Any]:
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(_key_str(k) for k in path): leaf for path, leaf in flat}
+
 
 def _to_save(state: TrainState, iterator=None):
-    payload = {
+    return {
         "step": state.step,
         "params": state.params,
         "batch_stats": state.batch_stats,
@@ -36,72 +57,112 @@ def _to_save(state: TrainState, iterator=None):
             "step": (iterator or {}).get("step", 0),
         },
     }
-    return payload
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, jax.Array) and not x.is_fully_addressable:
+        from jax.experimental import multihost_utils
+
+        x = multihost_utils.process_allgather(x, tiled=True)
+    a = np.asarray(x)
+    if a.dtype.type.__module__ != "numpy":  # e.g. bfloat16: npz stores numpy dtypes
+        a = a.astype(np.float32)
+    return a
 
 
 def save_state(path: str, state: TrainState, iterator=None) -> None:
+    """Write ``state`` (and the iterator cursor) to directory ``path``,
+    replacing any checkpoint already there."""
     path = os.path.abspath(path)
-    with ocp.StandardCheckpointer() as ckptr:
-        ckptr.save(path, _to_save(state, iterator), force=True)
+    arrays = {k: _host(v) for k, v in _flatten(_to_save(state, iterator)).items()}
+    if jax.process_index() != 0:
+        return
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent, prefix=f".{os.path.basename(path)}.")
+    try:
+        with open(os.path.join(tmp, _FILE), "wb") as f:
+            np.savez(f, **arrays)
+            f.flush()
+            os.fsync(f.fileno())
+        old = None
+        if os.path.exists(path):
+            old = tmp + ".old"
+            os.rename(path, old)
+        os.rename(tmp, path)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if old is not None:
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def _load(path: str) -> Dict[str, np.ndarray]:
+    with np.load(os.path.join(os.path.abspath(path), _FILE), allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
 
 
 def restore_state(path: str, template: TrainState, with_iterator: bool = False):
-    path = os.path.abspath(path)
-    with ocp.StandardCheckpointer() as ckptr:
-        restored = ckptr.restore(path, _to_save(template))
+    """Restore a checkpoint into the structure, dtypes and shardings of
+    ``template``."""
+    saved = _load(path)
 
-    def match_placement(r, t):
-        # orbax commits restored leaves to single-device placement, which
-        # conflicts with mesh-committed params inside jitted steps.  Re-place
-        # leaves whose template carries an explicit mesh sharding; return the
-        # rest as HOST arrays (uncommitted — jit places them like fresh
-        # inputs, matching the pre-restore state's behaviour).
-        from jax.sharding import NamedSharding
-
-        if isinstance(t, jax.Array) and isinstance(t.sharding, NamedSharding):
-            return jax.device_put(r, t.sharding)
-        return np.asarray(r)
+    def fill(prefix, tree):
+        flat, treedef = jax.tree_util.tree_flatten_with_path(tree)
+        leaves = []
+        for kp, t in flat:
+            key = "/".join([prefix] + [_key_str(k) for k in kp])
+            if key not in saved:
+                raise KeyError(f"checkpoint {path} has no {key!r}")
+            r = saved[key].astype(jnp.result_type(t))
+            if np.shape(r) != np.shape(t):
+                raise ValueError(f"{key}: checkpoint shape {r.shape} != {np.shape(t)}")
+            leaves.append(_place(r, t))
+        return jax.tree_util.tree_unflatten(treedef, leaves)
 
     state = template.replace(
-        step=match_placement(restored["step"], template.step),
-        params=jax.tree.map(match_placement, restored["params"], template.params),
-        batch_stats=jax.tree.map(
-            match_placement, restored["batch_stats"], template.batch_stats
-        ),
-        opt_state=jax.tree.map(
-            match_placement, restored["opt_state"], template.opt_state
-        ),
-        # wrap from HOST data: wrapping the restored (device-committed) array
-        # would pin the key to one device, conflicting with mesh-placed params
-        rng=jax.random.wrap_key_data(jnp.asarray(np.asarray(restored["rng"]))),
+        step=_place(saved["step"].astype(np.int32), template.step),
+        params=fill("params", template.params),
+        batch_stats=fill("batch_stats", template.batch_stats),
+        opt_state=fill("opt_state", template.opt_state),
+        # wrap from HOST data: a device-committed key would be pinned to one
+        # device, conflicting with mesh-placed params
+        rng=jax.random.wrap_key_data(jnp.asarray(saved["rng"])),
     )
     if with_iterator:
-        it = restored.get("iterator", {"epoch": -1, "step": 0})
-        it = {"epoch": int(it["epoch"]), "step": int(it["step"])}
+        it = {"epoch": int(saved["iterator/epoch"]), "step": int(saved["iterator/step"])}
         return state, (it if it["epoch"] >= 0 else None)
     return state
+
+
+def _place(r: np.ndarray, t):
+    """Leaves whose template carries a mesh sharding go back onto it; the
+    rest stay host arrays, which jit places like fresh inputs."""
+    from jax.sharding import NamedSharding
+
+    if isinstance(t, jax.Array) and isinstance(t.sharding, NamedSharding):
+        return jax.device_put(r, t.sharding)
+    return r
 
 
 def restore_encoder_params(path: str, template_params: Any) -> Any:
     """Restore only encoder/subsampling params, keep the rest (decoder/head)
     from ``template_params`` — the 'load pretrained conformer' path."""
-    path = os.path.abspath(path)
-    with ocp.PyTreeCheckpointer() as ckptr:
-        # untyped restore: returns the raw saved tree regardless of template
-        restored = ckptr.restore(path)["params"]
+    saved = _load(path)
 
-    def merge(tpl, new, key_path=""):
+    def merge(tpl, prefix):
         out = {}
-        for k in tpl:
-            sub = f"{key_path}/{k}"
-            if isinstance(tpl[k], dict):
-                out[k] = merge(tpl[k], new.get(k, tpl[k]), sub)
+        for k, v in tpl.items():
+            key = f"{prefix}/{k}"
+            if isinstance(v, dict):
+                out[k] = merge(v, key)
+            elif ("encoder" in prefix or "subsampling" in prefix) and key in saved:
+                out[k] = saved[key].astype(v.dtype)
             else:
-                take_new = ("encoder" in key_path or "subsampling" in key_path)
-                out[k] = new.get(k, tpl[k]) if take_new else tpl[k]
+                out[k] = v
         return out
 
-    return merge(template_params, restored)
+    return merge(template_params, "params")
 
 
 class CheckpointManager:
@@ -132,20 +193,10 @@ class CheckpointManager:
         save_state(path, state, iterator=iterator)
         if metric is not None and (self.best_metric is None or metric < self.best_metric):
             self.best_metric = metric
-            best = os.path.join(self.directory, "best")
-            if os.path.islink(best) or os.path.exists(best):
-                import shutil
-
-                shutil.rmtree(best, ignore_errors=True)
-            import shutil
-
-            shutil.copytree(path, best)
-        # rotate
+            save_state(os.path.join(self.directory, "best"), state, iterator=iterator)
         dirs = self._step_dirs()
         while len(dirs) > self.keep:
             _, name = dirs.pop(0)
-            import shutil
-
             shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
         return path
 

@@ -16,16 +16,26 @@ def _ensure_dir(path: str) -> None:
     os.makedirs(d, exist_ok=True)
 
 
+def _pyplot():
+    """matplotlib's pyplot on the file-only Agg backend (an optional
+    dependency: plots are off the training path)."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("plots and heatmaps need matplotlib, which is not installed") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
 def plot_curves(
     history: Dict[str, List[float]],
     out_path: str,
     title: str = "training curves",
 ) -> None:
     """Loss/WER line plots per epoch (`lib/evals.py:25-49`)."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot()
 
     _ensure_dir(out_path)
     keys = [k for k, v in history.items() if v]
@@ -56,10 +66,7 @@ def confusion_heatmap(
     to a confusion matrix; multi-word pairs use the first word.  Returns the
     matrix; with ``normalize`` rows become percentages.
     """
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot()
 
     idx = {w: i for i, w in enumerate(labels)}
     n = len(labels)

@@ -60,7 +60,7 @@ class LMTrainer:
 
         def train_step(state: TrainState, src, slen, tgt, tlen):
             rng, do_rng = jax.random.split(state.rng)
-            do_rng = dropout_key(do_rng)  # TPU hardware RNG (utils/rng.py)
+            do_rng = dropout_key(do_rng)  # the platform's dropout PRNG (utils/rng.py)
             src_mask = jnp.arange(src.shape[1])[None, :] < slen[:, None]
             tgt_mask = jnp.arange(tgt.shape[1])[None, :] < tlen[:, None]
             # teacher forcing: input = <pad>-shifted target, label = target

@@ -58,7 +58,7 @@ class PretrainTrainer:
 
         def train_step(state: TrainState, audio, audio_lengths):
             rng, m_rng, g_rng, d_rng = jax.random.split(state.rng, 4)
-            d_rng = dropout_key(d_rng)  # TPU hardware RNG (utils/rng.py)
+            d_rng = dropout_key(d_rng)  # the platform's dropout PRNG (utils/rng.py)
             feats, flens = log_mel_spectrogram(audio, feat_cfg, audio_lengths)
 
             def loss_fn(params):

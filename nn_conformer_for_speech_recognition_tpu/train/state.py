@@ -2,31 +2,33 @@
 
 Unlike the reference's checkpoint (final weights only, no optimizer state or
 step — `lib/standard/runner.py:48-60`), the full state is a single pytree so
-orbax can checkpoint/restore everything needed for exact resume (SURVEY.md
-§5 checkpoint/resume).
+`train/checkpoint.py` can save and restore everything needed for exact resume
+(SURVEY.md §5 checkpoint/resume).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import jax
+import jax.numpy as jnp
 import optax
-from flax import struct
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jax.Array
     params: Any
     batch_stats: Any
     opt_state: Any
     rng: jax.Array
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    # static: the optimizer is part of the tree's structure, not a leaf
+    tx: optax.GradientTransformation = dataclasses.field(metadata=dict(static=True))
 
     @classmethod
     def create(cls, params, batch_stats, tx, rng):
-        import jax.numpy as jnp
-
         return cls(
             step=jnp.zeros((), jnp.int32),
             params=params,
@@ -35,6 +37,9 @@ class TrainState(struct.PyTreeNode):
             rng=rng,
             tx=tx,
         )
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads, new_batch_stats, new_rng):
         updates, new_opt_state = self.tx.update(grads, self.opt_state, self.params)

@@ -6,12 +6,12 @@ step as 3x forward — the standard "model FLOPs" convention (params+activation
 grads each cost one forward-equivalent; rematerialisation recompute is
 deliberately NOT credited, so MFU stays comparable across remat settings).
 
-MFU = model FLOPs/step ÷ step time ÷ peak chip FLOPs.  TPU v5e peak is
-197 TFLOP/s bf16 (394 int8); there is no native f32 MXU mode — f32 matmuls
-run as multi-pass bf16 — so MFU is always reported against the bf16 peak.
+MFU = model FLOPs/step ÷ step time ÷ the device's dense bf16 peak
+(`peak_flops`, keyed by ``device_kind``; a device not in the table is an
+error, not a default).
 
 The reference publishes no FLOPs or MFU anywhere (SURVEY.md §6); this is
-part of the perf/observability layer the TPU build adds.
+part of the perf/observability layer this build adds.
 """
 
 from __future__ import annotations
@@ -20,7 +20,21 @@ import math
 
 from nn_conformer_for_speech_recognition_tpu.config import ModelConfig
 
-TPU_V5E_PEAK_FLOPS = 197e12  # bf16
+# dense bf16 tensor-core peak by jax Device.device_kind
+PEAK_BF16_FLOPS = {
+    # H100 SXM: 989 TFLOP/s bf16 dense at the 700 W limit (NVIDIA H100 data sheet)
+    "NVIDIA H100 80GB HBM3": 989e12,
+}
+
+
+def peak_flops(device_kind: str) -> float:
+    try:
+        return PEAK_BF16_FLOPS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no bf16 peak recorded for device {device_kind!r} "
+            f"(known: {sorted(PEAK_BF16_FLOPS)})"
+        ) from None
 
 
 def conformer_forward_flops(
@@ -53,8 +67,8 @@ def conformer_forward_flops(
     qkv = 2 * batch * t_enc * d * 3 * d
     scores = 2 * batch * h * t_enc * t_enc * dh
     att_v = 2 * batch * h * t_enc * t_enc * dh
-    # Transformer-XL rel-pos: qp against the (2T-1) table (flash computes the
-    # band in-kernel: 2·block wide per tile → 2x the score matmul) + pos_proj
+    # Transformer-XL rel-pos: q·p against the whole (2T-1) table (≈ 2x the
+    # score matmul, before the rel-shift) + pos_proj
     relpos = 2 * scores + 2 * (2 * t_enc - 1) * d * d
     out_proj = 2 * batch * t_enc * d * d
     conv_pw1 = 2 * batch * t_enc * d * (2 * e.conv_expansion * d)
@@ -86,6 +100,7 @@ def mfu(
     batch: int,
     frames: int,
     step_seconds: float,
-    peak_flops: float = TPU_V5E_PEAK_FLOPS,
+    device_kind: str,
 ) -> float:
-    return train_step_flops(mcfg, vocab_size, batch, frames) / step_seconds / peak_flops
+    return (train_step_flops(mcfg, vocab_size, batch, frames) / step_seconds
+            / peak_flops(device_kind))

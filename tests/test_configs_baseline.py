@@ -1,5 +1,5 @@
 """Coverage for BASELINE.json's config matrix (shapes/rules level; full runs
-live in examples/ and the TPU demos)."""
+live in examples/ and chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp

@@ -121,3 +121,53 @@ def test_grad_matches_optax(rng):
     g1 = jax.grad(ours)(jnp.asarray(logits))
     g2 = jax.grad(theirs)(jnp.asarray(logits))
     np.testing.assert_allclose(np.asarray(g1), np.asarray(g2), rtol=1e-3, atol=1e-4)
+
+
+def _optax_ref(logits, labels, il, ll, blank_id=0):
+    t, l = logits.shape[1], labels.shape[1]
+    return optax.ctc_loss(
+        logits,
+        jnp.asarray((np.arange(t)[None] >= np.asarray(il)[:, None]).astype(np.float32)),
+        jnp.asarray(labels),
+        jnp.asarray((np.arange(l)[None] >= np.asarray(ll)[:, None]).astype(np.float32)),
+        blank_id=blank_id,
+    )
+
+
+def _case(rng, name):
+    if name == "long_labels":  # L close to T/2: many alignment states
+        b, t, v, l = 3, 64, 9, 30
+        il, ll = np.array([64, 64, 61]), np.array([30, 28, 25])
+    elif name == "repeated_labels":  # repeats force blanks between them
+        b, t, v, l = 2, 24, 5, 8
+        labels = np.array([[1, 1, 2, 2, 2, 3, 3, 1], [4, 4, 4, 4, 1, 1, 0, 0]])
+        logits = rng.standard_normal((b, t, v)).astype(np.float32)
+        return logits, labels.astype(np.int32), np.array([24, 20]), np.array([8, 6])
+    elif name == "ragged":  # input and label lengths differ per row
+        b, t, v, l = 5, 40, 11, 10
+        il, ll = np.array([40, 33, 21, 12, 40]), np.array([10, 7, 9, 1, 3])
+    else:  # "real_width": the Conformer-M training shapes
+        b, t, v, l = 2, 235, 1024, 100
+        il, ll = np.array([235, 190]), np.array([100, 80])
+    logits = rng.standard_normal((b, t, v)).astype(np.float32)
+    labels = rng.integers(1, v, size=(b, l)).astype(np.int32)
+    return logits, labels, il, ll
+
+
+@pytest.mark.parametrize("name", ["long_labels", "repeated_labels", "ragged", "real_width"])
+def test_scan_loss_and_grad_match_optax(rng, name):
+    """The lax.scan CTC against optax.ctc_loss: per-sequence losses and
+    gradients with respect to the logits."""
+    logits, labels, il, ll = _case(rng, name)
+    lg = jnp.asarray(logits)
+
+    def ours(x):
+        return ctc_loss_from_logits(x, jnp.asarray(labels), jnp.asarray(il),
+                                    jnp.asarray(ll), reduction=None)
+
+    loss = ours(lg)
+    ref = _optax_ref(lg, labels, il, ll)
+    np.testing.assert_allclose(np.asarray(loss), np.asarray(ref), rtol=1e-4, atol=1e-3)
+    g = jax.grad(lambda x: jnp.sum(ours(x)))(lg)
+    g_ref = jax.grad(lambda x: jnp.sum(_optax_ref(x, labels, il, ll)))(lg)
+    np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref), rtol=1e-3, atol=1e-4)

@@ -69,6 +69,39 @@ def test_logmel_matches_numpy_reference(rng):
     np.testing.assert_allclose(np.asarray(got), ref, atol=5e-2, rtol=1e-3)
 
 
+def _numpy_logmel(x, cfg):
+    """Independent numpy STFT → power → mel → log (centered, reflect-pad)."""
+    pad = cfg.n_fft // 2
+    padded = np.pad(x, ((0, 0), (pad, pad)), mode="reflect")
+    w = scipy.signal.get_window("hann", cfg.win_length_, fftbins=True)
+    wpad = cfg.n_fft - cfg.win_length_
+    w = np.pad(w, (wpad // 2, wpad - wpad // 2))
+    t = x.shape[-1] // cfg.hop_length + 1
+    frames = np.stack(
+        [padded[:, k * cfg.hop_length: k * cfg.hop_length + cfg.n_fft] for k in range(t)],
+        axis=1,
+    )
+    power = np.abs(np.fft.rfft(frames.astype(np.float64) * w, axis=-1)) ** 2
+    mel = power @ F.mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax_)
+    return np.log(np.maximum(mel, cfg.log_floor))
+
+
+@pytest.mark.parametrize("n_fft,hop,win,n_samples", [
+    (512, 512, None, 16001),    # odd length: the last frame is partial
+    (512, 512, None, 160000),   # many frames (10 s)
+    (512, 160, None, 8000),     # overlapping hop
+    (400, 160, 400, 12345),     # n_fft not a power of two
+])
+def test_logmel_matches_numpy_reference_geometries(rng, n_fft, hop, win, n_samples):
+    cfg = FeatureConfig(n_fft=n_fft, hop_length=hop, win_length=win, normalize="none")
+    x = rng.standard_normal((2, n_samples)).astype(np.float32) * 0.1
+    got, _ = F.make_featurizer(cfg)(jnp.asarray(x))
+    ref = _numpy_logmel(x, cfg)
+    assert got.shape == ref.shape == (2, n_samples // hop + 1, cfg.n_mels)
+    # f32 matmul-DFT vs f64 rfft, compared in the log domain
+    np.testing.assert_allclose(np.asarray(got), ref, atol=5e-2, rtol=1e-3)
+
+
 def test_minmax_normalization_respects_lengths(rng):
     cfg = FeatureConfig(normalize="minmax")
     x = rng.standard_normal((2, 16000)).astype(np.float32)

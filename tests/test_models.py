@@ -201,20 +201,16 @@ def _param_paths(params):
     }
 
 
-@pytest.mark.parametrize("use_pallas,conv_impl,expect_dw", [
-    (False, "auto", False),    # all-XLA: nn.Conv 'depthwise' subtree
-    (True, "auto", False),     # canonical: auto resolves to xla (ADVICE r4)
-    (True, "pallas", True),    # forced Pallas: packed 'dw_kernel' param
-    (True, "xla", False),
-])
-def test_param_tree_pinned_per_conv_impl(rng, use_pallas, conv_impl, expect_dw):
-    """ADVICE round-4 medium: the same ModelConfig must yield the same param
-    tree through every entry point, and the conv param names are pinned per
-    (use_pallas, conv_impl) so checkpoint compatibility is explicit."""
+@pytest.mark.parametrize("norm", ["batchnorm", "groupnorm", "layernorm"])
+def test_param_tree_pinned_per_conv_norm(rng, norm):
+    """The parameter paths a checkpoint holds: one 'depthwise' Conv per
+    block (biasless before BatchNorm, whose mean subtraction makes a bias
+    inert), the packed per-direction BiLSTM weights, and the head."""
     mcfg = _tiny_model()
     mcfg = C.ModelConfig(
-        encoder=mcfg.encoder, decoder=mcfg.decoder, n_mels=mcfg.n_mels,
-        use_pallas=use_pallas, conv_impl=conv_impl,
+        encoder=C.ConformerConfig(num_blocks=2, d_model=32, num_heads=2, ffn_dim=64,
+                                  conv_kernel_size=7, dropout=0.0, conv_norm=norm),
+        decoder=mcfg.decoder, n_mels=mcfg.n_mels,
     )
     model = ConformerCTC(mcfg, vocab_size=11)
     feats = jnp.asarray(rng.standard_normal((2, 16, 8)).astype(np.float32))
@@ -223,38 +219,11 @@ def test_param_tree_pinned_per_conv_impl(rng, use_pallas, conv_impl, expect_dw):
         {"params": jax.random.key(0), "dropout": jax.random.key(1)}, feats, lens
     )
     paths = _param_paths(variables["params"])
-    has_dw = any("dw_kernel" in p for p in paths)
-    has_conv = any("depthwise" in p for p in paths)
-    assert has_dw == expect_dw
-    assert has_conv == (not expect_dw)
-
-
-def test_encoder_direct_matches_ctc_resolution(rng):
-    """ConformerEncoder built directly with use_pallas=True (legacy mapping)
-    must produce the SAME param tree as ConformerCTC's resolved_conv_impl
-    path — the pre-round-5 legacy fallback forced the Pallas depthwise and
-    diverged (ADVICE round-4 medium)."""
-    enc_cfg = C.ConformerConfig(num_blocks=1, d_model=32, num_heads=2,
-                                ffn_dim=64, conv_kernel_size=7, dropout=0.0)
-    x = jnp.asarray(rng.standard_normal((2, 12, 32)).astype(np.float32))
-    lens = jnp.array([12, 7])
-    direct = ConformerEncoder(enc_cfg, use_pallas=True).init(
-        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, x, lens
-    )
-    resolved = ConformerEncoder(
-        enc_cfg, use_pallas=True,
-        attention_impl="auto",
-        conv_impl=C.ModelConfig(encoder=enc_cfg, use_pallas=True).resolved_conv_impl(),
-    ).init({"params": jax.random.key(0), "dropout": jax.random.key(1)}, x, lens)
-    assert jax.tree_util.tree_structure(direct) == jax.tree_util.tree_structure(resolved)
-    paths = _param_paths(direct["params"])
-    assert not any("dw_kernel" in p for p in paths)
-
-
-def test_featurizer_impl_validated():
-    from nn_conformer_for_speech_recognition_tpu.ops.features import (
-        resolve_featurizer_impl,
-    )
-
-    with pytest.raises(ValueError, match="impl"):
-        resolve_featurizer_impl(C.FeatureConfig(impl="pallsa"))
+    dw = {p for p in paths if "/depthwise/" in p}
+    want_bias = norm != "batchnorm"
+    assert dw == {f"encoder/block_{i}/conv/depthwise/{n}" for i in range(2)
+                  for n in (("kernel", "bias") if want_bias else ("kernel",))}
+    assert {f"decoder_lstm/lstm_{d}_0_{w}" for d in ("fwd", "bwd")
+            for w in ("w_ih", "w_hh", "bias")} <= paths
+    assert {"final_fc/kernel", "final_fc/bias", "projection/kernel"} <= paths
+    assert variables["params"]["encoder"]["block_0"]["conv"]["depthwise"]["kernel"].shape == (7, 1, 64)

@@ -1,18 +1,16 @@
 """Dropout RNG impl selection (utils/rng.py).
 
-The TPU train paths convert the per-step dropout key to the 'rbg'
-(hardware RNG) implementation — threefry mask generation alone cost ~11 ms
-of the 34 ms Conformer-M step (results/ffn_probe_tpu.json).  On CPU 'auto'
-must stay threefry so these tests (and all pre-existing CPU numerics)
-are bit-identical to before the feature.
+The GPU train path converts the per-step dropout key to the 'rbg'
+(XLA RngBitGenerator) implementation.  On CPU 'auto' must stay threefry so
+these tests (and all CPU numerics) are bit-identical to threefry dropout.
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from nn_conformer_for_speech_recognition_tpu.models import layers as nn
 from nn_conformer_for_speech_recognition_tpu.utils.rng import (
     dropout_key,
     resolve_dropout_rng_impl,
@@ -43,7 +41,7 @@ def test_rbg_key_is_rbg_impl_and_usable():
     k = jax.random.key(7)
     rk = dropout_key(k, impl="rbg")
     assert str(jax.random.key_impl(rk)) != str(jax.random.key_impl(k))
-    # flax-style: fold per module path, then draw a bernoulli mask
+    # as models/layers.py does: fold per module path, then draw a mask
     folded = jax.random.fold_in(rk, 42)
     mask = jax.random.bernoulli(folded, 0.9, (8, 128))
     frac = float(jnp.mean(mask.astype(jnp.float32)))
@@ -61,7 +59,6 @@ def test_rbg_key_drives_flax_dropout_under_jit():
     """The exact product pattern: converted key into model.apply rngs."""
 
     class M(nn.Module):
-        @nn.compact
         def __call__(self, x, deterministic):
             x = nn.Dense(16)(x)
             return nn.Dropout(0.5)(x, deterministic=deterministic)
@@ -85,10 +82,10 @@ def test_rbg_key_drives_flax_dropout_under_jit():
 
 
 def test_rbg_dropout_under_device_mesh():
-    """The real multichip TPU path: rbg keys inside a GSPMD-sharded step.
+    """The multi-device path: rbg keys inside a GSPMD-sharded step.
 
     XLA's RngBitGenerator must partition (or legally replicate) under
-    pjit — run a dropout model with a batch-sharded input over a mesh and
+    jit — run a dropout model with a batch-sharded input over a mesh and
     require a finite, correctly-shaped result.  (The full DP x TP train
     step with rbg forced is exercised by __graft_entry__.dryrun_multichip;
     this is the minimal in-suite pin.)
@@ -96,7 +93,6 @@ def test_rbg_dropout_under_device_mesh():
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
     class M(nn.Module):
-        @nn.compact
         def __call__(self, x, deterministic):
             x = nn.Dense(32)(x)
             return nn.Dropout(0.3)(x, deterministic=deterministic)

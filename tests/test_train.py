@@ -132,27 +132,6 @@ def test_specaugment_train_step_runs(setup):
     assert np.isfinite(trainer.history["train_loss"][0])
 
 
-def test_ctc_impl_pallas_matches_xla(setup):
-    """TrainConfig.ctc_impl='pallas' (fused kernel, interpret mode on CPU)
-    yields the same losses as the lax.scan CTC over real train steps."""
-    feat_cfg, vocab, dss = setup
-    losses = {}
-    for impl in ("xla", "pallas"):
-        tcfg = C.TrainConfig(
-            batch_size=8,
-            optimizer=C.OptimizerConfig(name="adam", learning_rate=3e-3),
-            use_specaugment=False,
-            donate_state=False,
-            ctc_impl=impl,
-        )
-        model = ConformerCTC(_tiny_model_cfg(), vocab_size=len(vocab))
-        trainer = Trainer(model, vocab, feat_cfg, tcfg)
-        trainer.init_state(seed=0)
-        trainer.train(dss["train"], epochs=2)
-        losses[impl] = trainer.history["train_loss"]
-    np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=2e-4)
-
-
 def _fused_vs_per_step(feat_cfg, vocab, dataset, n_utts=None):
     from nn_conformer_for_speech_recognition_tpu.data.device_cache import (
         DeviceResidentDataset)
